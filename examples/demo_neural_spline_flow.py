@@ -53,6 +53,9 @@ def main(max_iters: int, seed: int = 123, affine_wrap: bool = False):
 
 
 if __name__ == "__main__":
+    from normalizingflows.jl_tpu.device import init_compile_cache
+
+    init_compile_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--iters", type=int, default=200)
     p.add_argument("--affine-wrap", action="store_true")

@@ -44,6 +44,9 @@ def main(max_iters: int, seed: int = 123):
 
 
 if __name__ == "__main__":
+    from normalizingflows.jl_tpu.device import init_compile_cache
+
+    init_compile_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--iters", type=int, default=200)
     main(p.parse_args().iters)

@@ -43,6 +43,9 @@ def main(max_iters: int, seed: int = 123, use_stl: bool = False):
 
 
 if __name__ == "__main__":
+    from normalizingflows.jl_tpu.device import init_compile_cache
+
+    init_compile_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--iters", type=int, default=500)
     p.add_argument("--stl", action="store_true")

@@ -1,8 +1,8 @@
 // Native data loader for forward-KL (MLE) flow training.
 //
-// TPU-native equivalent of the dataloader the reference left as a TODO
+// Native equivalent of the dataloader the reference left as a TODO
 // (`src/objectives/loglikelihood.jl:35-43`): the host side of the input
-// pipeline must keep a TPU fed without stealing Python-thread time from the
+// pipeline must keep the device fed without stealing Python-thread time from the
 // dispatch loop. This library mmaps a raw float32 row-major (n_rows, dim)
 // file, draws per-epoch shuffled minibatches, and materializes them into a
 // ring of prefetch buffers from a background thread pool; the Python side

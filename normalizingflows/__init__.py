@@ -1,4 +1,4 @@
-"""normalizingflows — TPU-native normalizing-flow variational inference.
+"""normalizingflows — normalizing-flow variational inference in JAX.
 
 The implementation lives in :mod:`normalizingflows.jl_tpu`; this root
 re-exports its public API so ``import normalizingflows as nf`` works.
@@ -7,9 +7,3 @@ re-exports its public API so ``import normalizingflows as nf`` works.
 from .jl_tpu import *  # noqa: F401,F403
 from .jl_tpu import __all__, __version__  # noqa: F401
 
-
-def __getattr__(name: str):
-    # forward the retired-kernel lazy attributes (see jl_tpu.__getattr__)
-    from . import jl_tpu
-
-    return getattr(jl_tpu, name)

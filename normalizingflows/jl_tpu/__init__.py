@@ -1,4 +1,4 @@
-"""TPU-native normalizing-flow variational inference engine.
+"""Normalizing-flow variational inference engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of
 TuringLang/NormalizingFlows.jl (see SURVEY.md): a bijector protocol with
@@ -118,17 +118,6 @@ from .diagnostics import (
 
 __version__ = "0.1.0"
 
-
-def __getattr__(name: str):
-    # Retired-kernel entry points live in `.experimental` (837 lines of
-    # archived Pallas code NOT loaded on plain import — VERDICT r4 item 7);
-    # old call sites keep working through this lazy hook.
-    if name in ("FusedRealNVP", "train_realnvp_fused"):
-        from . import experimental
-
-        return getattr(experimental, name)
-    raise AttributeError(
-        f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
     # bijectors

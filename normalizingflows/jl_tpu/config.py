@@ -65,7 +65,6 @@ class FlowConfig:
     K: int = 10
     B: float = 30.0
     dtype: str = "float32"  # the reference's `paramtype` knob
-    fused: bool = False
     leapfrog_steps: int = 3    # hamiltonian: L per block
     leapfrog_eps0: float = 0.05  # hamiltonian: initial step size
 
@@ -77,7 +76,7 @@ class FlowConfig:
             return radialflow(key, self.dim, self.nlayers, dtype=dt)
         if self.family == "realnvp":
             return realnvp(key, self.dim, tuple(self.hdims),
-                           nlayers=self.nlayers, dtype=dt, fused=self.fused)
+                           nlayers=self.nlayers, dtype=dt)
         if self.family == "nsf":
             return nsf(key, self.dim, tuple(self.hdims), K=self.K, B=self.B,
                        nlayers=self.nlayers, dtype=dt)

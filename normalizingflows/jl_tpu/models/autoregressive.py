@@ -4,8 +4,8 @@ reference's zoo.
 An affine autoregressive transform ``y_i = x_i·exp(s_i(x_{<i})) +
 t_i(x_{<i})`` is triangular, so its log-det is ``Σ s_i`` and one masked-MLP
 pass (MADE — Germain et al. 2015) computes EVERY conditioner output at once:
-the whole transform is two dense matmuls on the MXU, strictly
-TPU-friendlier than d sequential conditioners. The sequential direction
+the whole transform is two dense matmuls, far better suited to an
+accelerator than d sequential conditioners. The sequential direction
 (solving for x given y) runs the masked pass ``dim`` times — exact after
 ``dim`` fixed-point iterations because dependency is strictly triangular —
 as a `lax.fori_loop` with static trip count.

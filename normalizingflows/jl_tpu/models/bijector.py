@@ -1,6 +1,6 @@
 """Bijector protocol and combinators.
 
-TPU-native replacement for the Bijectors.jl substrate the reference delegates
+JAX replacement for the Bijectors.jl substrate the reference delegates
 to (`src/NormalizingFlows.jl:10-11`): `with_logabsdet_jacobian`, `Inverse`,
 `∘` composition, and `Stacked`. Differences by design:
 
@@ -155,9 +155,8 @@ class Repeated(Bijector):
     """N structurally-identical blocks applied via ``lax.scan``.
 
     The deep-flow composition primitive. A `Chain` of N blocks gives XLA N
-    separate call sites — compile time (and, for Pallas layers, Mosaic
-    kernel compiles) grows linearly with depth, which on a remote-compiled
-    TPU toolchain is minutes for a 10-layer NSF. `Repeated` stacks the N
+    separate call sites — compile time (and, for Pallas layers, kernel
+    compiles) grows linearly with depth. `Repeated` stacks the N
     blocks' parameters along a leading axis and scans one block body, so a
     flow of ANY depth compiles exactly one forward (and one backward)
     program per block type. This is also the fix for the reference's own
@@ -172,13 +171,11 @@ class Repeated(Bijector):
     stacked: Bijector
     n: int = static_field()
     # rematerialize each block under autodiff: recompute the block's
-    # activations in the backward pass instead of saving them to HBM.
-    # On wide flows the scan's per-layer residuals dominate backward time
-    # (measured ~1 ms of pure activation traffic per train step on the
-    # d=128/[256,256]×10 config, benchmarks/wide_ablate.py) while the
-    # recompute flops are cheap — the classic TPU flops-for-bandwidth
-    # trade. Off by default: at demo sizes residuals are tiny and remat
-    # only adds latency.
+    # activations in the backward pass instead of saving them to device
+    # memory: on wide flows the scan's per-layer residuals are a large
+    # share of backward traffic while the recompute flops are cheap (a
+    # flops-for-bandwidth trade). Off by default: at demo sizes residuals
+    # are tiny and remat only adds latency.
     remat: bool = static_field(default=False)
 
     def _scan(self, x, fn_name, reverse):

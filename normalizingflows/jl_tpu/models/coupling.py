@@ -191,8 +191,6 @@ def realnvp(
     nlayers: int = 10,
     dtype=jnp.float32,
     scan: bool = True,
-    fused: bool = False,
-    interpret: bool = False,
     compute_dtype=None,
     remat: bool = False,
 ) -> TransformedDistribution:
@@ -202,17 +200,7 @@ def realnvp(
 
     ``scan=True`` (default) stacks the blocks into a `Repeated` scan so
     compile time is depth-independent; ``scan=False`` lays them out as a
-    flat `Chain` (same math, per-layer call sites). ``fused=True`` runs the
-    whole stack through the single fused Pallas kernel instead
-    (`experimental.FusedRealNVP`, imported lazily — the retired-kernel
-    archive is NOT loaded on plain `import normalizingflows`). Measured
-    on a real v5e (benchmarks/kernels.py, recorded in
-    benchmarks/KERNELS.md): the fused kernel wins the forward/sampling
-    path at small dims (2.1× at d=2/L=3, batch 4096) where per-layer HBM
-    round-trips dominate; for TRAINING, XLA's autodiff of the module path
-    is faster at every size measured (the hand-written backward must run
-    full-f32 matmuls and is VMEM-capped on wide flows) — keep the default
-    ``fused=False`` for training."""
+    flat `Chain` (same math, per-layer call sites)."""
     if isinstance(q0, int):
         q0 = DiagNormal.standard(q0, dtype)
     dim = q0.event_dim
@@ -220,13 +208,6 @@ def realnvp(
         RealNVP_layer(k, dim, hdims, dtype, compute_dtype)
         for k in jax.random.split(key, nlayers)
     ]
-    if fused:
-        from ..experimental import FusedRealNVP
-
-        return create_flow(
-            [FusedRealNVP.from_blocks(pairs, interpret=interpret,
-                                      compute_dtype=compute_dtype)], q0
-        )
     if scan:
         # split-carry scan: per-block partition/combine elided entirely;
         # remat=True recomputes block activations in the backward pass

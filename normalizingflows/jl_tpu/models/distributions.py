@@ -1,6 +1,6 @@
 """Base distributions and the transformed-distribution wrapper.
 
-TPU-native replacement for the Distributions.jl + Bijectors.jl pair the
+JAX replacement for the Distributions.jl + Bijectors.jl pair the
 reference builds on: a flow there is a `Bijectors.TransformedDistribution`
 (base dist + bijector, recommended at reference `src/NormalizingFlows.jl:28`),
 with `rand` = sample-base-then-forward and `logpdf` = inverse + logdet + base
@@ -10,7 +10,7 @@ plus a fused ``sample_and_log_prob`` used by the ELBO fast path.
 PRNG: explicit `jax.random` key threading replaces the reference's
 `_device_specific_rand(rng, ...)` dispatch point
 (`src/NormalizingFlows.jl:94-127` + `ext/NormalizingFlowsCUDAExt.jl`) — in
-JAX the same code compiles for CPU/TPU, so no device dispatch layer is
+JAX the same code compiles for CPU and GPU, so no device dispatch layer is
 needed; sharded sampling derives per-shard keys via `fold_in`
 (see `parallel/`).
 """

@@ -6,9 +6,9 @@ No reference counterpart (its zoo is planar/radial/RealNVP/NSF,
 with Invertible 1x1 Convolutions" (NeurIPS 2018). Rationale: coupling
 flows only mix dimensions through the fixed even/odd partition; a learned
 invertible linear layer between coupling blocks lets every dimension
-condition on every other at a cost of one (dim × dim) matmul — MXU-native.
+condition on every other at a cost of one (dim × dim) matmul.
 
-TPU design notes:
+Design notes:
 
   * `InvertibleLinear` stores W = P·L·(U + diag(s)) with the permutation P
     and sign(s) frozen at init (Glow's PLU trick): the log-determinant is
@@ -16,8 +16,7 @@ TPU design notes:
     triangular solves. P and sign(s) are carried as non-trainable ARRAY
     leaves (`__trainable__` masks them out of the update), so glow blocks
     are structurally identical and stack into a depth-independent
-    `Repeated` lax.scan; applying P is one more (d×d) matmul, which on the
-    MXU is cheaper than a cross-lane gather anyway.
+    `Repeated` lax.scan; applying P is one more (d×d) matmul.
   * `ActNorm` is an elementwise affine with a data-dependent
     initializer (`ActNorm.initialize(x)`: first-batch output is
     zero-mean/unit-variance per dim) — the Glow replacement for batch
@@ -132,14 +131,14 @@ class InvertibleLinear(Bijector):
 
     def forward_and_log_det(self, x):
         L, U = self._plu()
-        # y = x Wᵀ = x Uᵀ Lᵀ Pᵀ; P is a (d×d) matmul — MXU-native and
+        # y = x Wᵀ = x Uᵀ Lᵀ Pᵀ; P is a (d×d) matmul — cheap and
         # scan-stackable (a static gather would pin P per call site).
-        # ALL three matmuls run at HIGHEST precision: the default MXU
-        # precision rounds f32 operands like bf16 (same trap as
-        # ops/rqs.py's cumsum), which (a) perturbs the one-hot P pick and
-        # (b) breaks the f32 round-trip against the inverse's triangular
-        # solves (measured 1.7e-2 relative on TPU — benchmarks/tpu_check
-        # glow lane). d×d at glow sizes: cost is negligible.
+        # ALL three matmuls run at HIGHEST precision: at default precision
+        # an f32 product may run in TF32 on the GPU (about three decimal
+        # digits), which (a) perturbs the one-hot P pick and (b) breaks the
+        # f32 round-trip against the inverse's triangular solves (the
+        # round trip on the card is checked by chip_smoke.py). d×d at glow
+        # sizes: cost is negligible.
         hi = jax.lax.Precision.HIGHEST
         y = jnp.matmul(x, U.T, precision=hi)
         y = jnp.matmul(y, L.T, precision=hi)
@@ -156,7 +155,7 @@ class InvertibleLinear(Bijector):
                        precision=jax.lax.Precision.HIGHEST)
         # solve for the whole batch in one (d, n) triangular solve, under
         # a HIGHEST-precision scope (the blocked solve's internal matmuls
-        # otherwise get default MXU rounding — see forward)
+        # otherwise get default-precision rounding — see forward)
         d = z.shape[-1]
         batch_shape = z.shape[:-1]
         cols = jnp.moveaxis(z.reshape((-1, d)), -1, 0)  # (d, n)
@@ -215,7 +214,7 @@ def glow(
     No reference counterpart (Kingma & Dhariwal 2018 applied to the
     reference's flat-vector setting). The learned dense mixing replaces
     Glow's invertible 1×1 conv — one (d×d) matmul per block keeps the
-    layer MXU-native while letting every dimension condition on every
+    layer a plain matmul while letting every dimension condition on every
     other, instead of only across the fixed even/odd partition.
 
     ``scan=True`` (default) stacks the blocks into a depth-independent

@@ -7,7 +7,7 @@ Flux defaults: Glorot-uniform weights, zero bias. Parameters are pytree
 leaves; the dtype knob plays the role of Flux's `_paramtype` Float32/64 cast.
 
 Weights are stored (in_dim, out_dim) and applied as ``x @ W + b`` on
-``(..., in_dim)`` batches — batched matmuls that map straight onto the MXU.
+``(..., in_dim)`` batches — batched matmuls that XLA hands to cuBLAS.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Callable, Sequence
 import jax
 import jax.numpy as jnp
 
+from .. import device
 from ..utils.pytree import Module, module, static_field
 
 __all__ = ["Dense", "MLP", "fnn", "mlp3", "leaky_relu"]
@@ -28,9 +29,8 @@ def _mixed_matmul(x, W, cd, pet):
     """Matmul with operands cast to ``cd`` (bf16 policy) and accumulation
     dtype ``pet``. The custom VJP keeps BOTH backward matmuls in ``cd``
     too: without it, autodiff feeds the f32 cotangent into mixed-dtype
-    dot-generals that XLA upcasts to full-f32 multi-pass MXU products —
-    measured 5.3× forward cost on the wide-RealNVP train step (v5e,
-    benchmarks/wide_ablate.py). Standard mixed-precision semantics:
+    dot-generals that XLA upcasts to full-f32 products. Standard
+    mixed-precision semantics:
     bf16 operand/gradient matmuls, f32 accumulation, f32 master params."""
     return jnp.matmul(x.astype(cd), W.astype(cd),
                       preferred_element_type=pet)
@@ -72,7 +72,7 @@ class Dense(Module):
 
     ``compute_dtype`` is the mixed-precision policy knob (SURVEY §7 hard
     part 3): params stay in their stored dtype (master f32), but the matmul
-    operands are cast to ``compute_dtype`` (bf16 → one native MXU pass)
+    operands are cast to ``compute_dtype`` (bf16 → tensor-core products)
     with f32 accumulation (`preferred_element_type`). Bias add, activation,
     and everything downstream (log-dets) remain f32.
 
@@ -100,19 +100,19 @@ class Dense(Module):
     def __call__(self, x: jax.Array) -> jax.Array:
         if self.compute_dtype is not None:
             # mixed precision: bf16 (or other) operands, f32 accumulate.
-            # XLA:CPU has no mixed-dtype dot thunk (bf16×bf16→f32), so off-
-            # TPU the product is taken in compute_dtype and upcast after —
-            # a static trace-time branch, not a runtime one.
-            pet = self.W.dtype if jax.default_backend() == "tpu" else None
+            # XLA:CPU has no mixed-dtype dot thunk (bf16×bf16→f32), so there
+            # the product is taken in compute_dtype and upcast after — a
+            # static trace-time branch, not a runtime one.
+            pet = self.W.dtype if device.mixed_dot_supported() else None
             y = _mixed_matmul(
                 x, self.W, self.compute_dtype, pet
             ).astype(self.W.dtype) + self.b
         else:
-            # Full-precision matmul for f32/f64 params: TPU DEFAULT
-            # precision rounds f32 operands to bf16 on the MXU, which
-            # breaks the reference's exact-arithmetic density semantics
-            # (log-dets feed exp()). Conditioners are tiny, so HIGHEST is
-            # effectively free; passing bf16 params opts into fast MXU
+            # Full-precision matmul for f32/f64 params: DEFAULT precision
+            # may run an f32 product in TF32 on the GPU (about three
+            # decimal digits), which breaks the reference's exact-
+            # arithmetic density semantics (log-dets feed exp()). HIGHEST is
+            # exact f32; passing bf16 params opts into tensor-core bf16
             # arithmetic explicitly.
             prec = (
                 jax.lax.Precision.HIGHEST

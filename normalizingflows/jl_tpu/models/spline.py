@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.ad_checkpoint import checkpoint_name
 
+from .. import device
 from ..ops import rqs
 from ..ops import rqs_pallas
 from ..ops.masks import PartitionMask
@@ -37,21 +38,10 @@ from .nets import MLP, Dense, fnn
 
 __all__ = ["NeuralSplineCoupling", "NSF_layer", "SplinePairStack", "nsf"]
 
-# Kernel-feed layout switch for the SplinePairStack pallas path (see
-# `_transform_param_major`): permute the last conditioner Dense so its
-# output reaches the param-major kernel through a lane-aligned transpose.
-# Default ON — measured 63.8 → 115.5 steps/s (+81%) on the wide NSF
-# train config (d=64, [128,128]×10, batch 4096, bf16; v5e 2026-08-21):
-# the (batch·n_t, 3K−1)→(3K−1, N) transpose with its 29-element minor
-# dim was ~40% of the whole train step. Identical to the default path
-# up to log-det summation-order ulps (columns of a matmul commute);
-# pinned by tests/test_rqs_kernel.py::test_param_major_feed_matches_default.
-PARAM_MAJOR_FEED = True
-# ...but ONLY above this per-call element count: at the demo scale
-# (batch 64 × n_t 1) the extra small transposes dominate and the layout
-# is a measured −24% (9.8k → 7.5k steps/s); at 131k elements it is the
-# measured +81%. Static shapes → trace-time branch, no runtime cost.
-PARAM_MAJOR_MIN_ELEMS = 16384
+def _use_kernel(backend: str) -> bool:
+    if backend == "auto":
+        return device.use_rqs_kernel()
+    return backend == "pallas"
 
 
 @module
@@ -65,11 +55,10 @@ class NeuralSplineCoupling(Bijector):
     K: int = static_field()          # number of spline bins
     B: float = static_field()        # box half-width: spline acts on [−B, B]
     mask: PartitionMask = static_field()
-    # 'auto' → fused Pallas kernel on TPU, jnp oracle elsewhere;
-    # 'oracle' / 'pallas' force a path (tests pin them against each other)
+    # 'auto' → fused Triton kernel where `device.use_rqs_kernel()`, jnp
+    # oracle elsewhere; 'oracle' / 'pallas' force a path (tests pin them
+    # against each other)
     backend: str = static_field(default="auto")
-    # run the Pallas path in interpret mode (for backend='pallas' off-TPU)
-    interpret: bool = static_field(default=False)
 
     @staticmethod
     def make(
@@ -81,7 +70,6 @@ class NeuralSplineCoupling(Bijector):
         mask_idx: Sequence[int],
         dtype=jnp.float32,
         backend: str = "auto",
-        interpret: bool = False,
         identity_init: bool = False,
         compute_dtype=None,
     ) -> "NeuralSplineCoupling":
@@ -106,12 +94,7 @@ class NeuralSplineCoupling(Bijector):
             last = Dense(jnp.zeros_like(last.W), b.reshape(-1),
                          last.activation, last.compute_dtype)
             nn = MLP(nn.layers[:-1] + (last,))
-        return NeuralSplineCoupling(nn, K, float(B), mask, backend, interpret)
-
-    def _use_pallas(self) -> bool:
-        if self.backend == "auto":
-            return jax.default_backend() == "tpu"
-        return self.backend == "pallas"
+        return NeuralSplineCoupling(nn, K, float(B), mask, backend)
 
     def _raw(self, x_b: jax.Array):
         """Conditioner output reshaped to (..., n_transformed, 3K−1)."""
@@ -121,14 +104,13 @@ class NeuralSplineCoupling(Bijector):
 
     def _transform(self, v: jax.Array, cond: jax.Array, inverse: bool):
         raw = self._raw(cond)
-        if self._use_pallas():
+        if _use_kernel(self.backend):
             # bf16 raw under the mixed-precision policy — see
             # SplinePairStack._transform for the traffic rationale
             cd = getattr(self.nn.layers[-1], "compute_dtype", None)
             if cd is not None:
                 raw = raw.astype(cd)
-            return rqs_pallas.rqs_fused(v, raw, self.B, inverse=inverse,
-                                        interpret=self.interpret)
+            return rqs_pallas.rqs_fused(v, raw, self.B, inverse=inverse)
         xs, ys, ds = rqs.rqs_params_from_raw(raw, self.B)
         fn = rqs.rqs_inverse if inverse else rqs.rqs_forward
         return fn(v, xs, ys, ds)
@@ -159,7 +141,6 @@ class SplinePairStack(Bijector):
     dim: int = static_field()
     n: int = static_field()
     backend: str = static_field(default="auto")
-    interpret: bool = static_field(default=False)
     remat: bool = static_field(default=False)
 
     @staticmethod
@@ -184,48 +165,42 @@ class SplinePairStack(Bijector):
             "odd": stack(lambda p: p[1].nn),
         }
         return SplinePairStack(stacked, c0.K, c0.B, dim, len(pairs),
-                               c0.backend, c0.interpret, remat)
-
-    def _use_pallas(self) -> bool:
-        if self.backend == "auto":
-            return jax.default_backend() == "tpu"
-        return self.backend == "pallas"
+                               c0.backend, remat)
 
     def _transform(self, v, nn, cond, inverse):
         n_t = v.shape[-1]
-        if (self._use_pallas() and PARAM_MAJOR_FEED and v.ndim == 2
-                and v.shape[0] * n_t >= PARAM_MAJOR_MIN_ELEMS):
+        use_kernel = _use_kernel(self.backend)
+        if use_kernel and v.ndim == 2:
             return self._transform_param_major(v, nn, cond, inverse)
         raw = nn(cond).reshape(cond.shape[:-1] + (n_t, 3 * self.K - 1))
-        if self._use_pallas():
+        if use_kernel:
             # When the conditioners run the bf16 mixed-precision policy,
             # hand the kernel its raw params in bf16 too: raw is 29 of
-            # the ~32 words/element of kernel traffic, and the producer→
-            # transpose→kernel glue around the param-major kernel moves
-            # it three times — storing it half-width halves that glue
-            # (in-kernel math still runs in x's dtype; `_tile_transform`
-            # upcasts on read).
+            # the ~32 words/element of kernel traffic (in-kernel math
+            # still runs in x's dtype; the kernel upcasts on load).
             cd = getattr(nn.layers[-1], "compute_dtype", None)
             if cd is not None:
                 raw = raw.astype(cd)
-            y, ld = rqs_pallas.rqs_fused(v, raw, self.B, inverse=inverse,
-                                         interpret=self.interpret)
-            y = checkpoint_name(y, "rqs_out")
-            ld = checkpoint_name(ld, "rqs_out")
+            y, ld = rqs_pallas.rqs_fused(v, raw, self.B, inverse=inverse)
         else:
             xs, ys, ds = rqs.rqs_params_from_raw(raw, self.B)
             fn = rqs.rqs_inverse if inverse else rqs.rqs_forward
             y, ld = fn(v, xs, ys, ds)
+        # named for the selective-remat policy of `_remat`
+        y = checkpoint_name(y, "rqs_out")
+        ld = checkpoint_name(ld, "rqs_out")
         return y, jnp.sum(ld, axis=-1)
 
     def _transform_param_major(self, v, nn, cond, inverse):
-        """Kernel-feed layout variant: permute the LAST conditioner
-        Dense's columns from (t, p) to (p, t) order at trace time (a tiny
-        parameter-side gather) so its output transposes into the kernel's
-        param-major (3K−1, N) layout through a lane-aligned
-        (batch, (3K−1)·n_t) transpose instead of the pathological
-        (batch·n_t, 3K−1) one. Same math — columns of a matmul commute —
-        pinned against the default path in tests."""
+        """The kernel's feed for (batch, n_t) inputs: permute the LAST
+        conditioner Dense's columns from (t, p) to (p, t) order at trace
+        time (a tiny parameter-side gather) so its output transposes into
+        the kernel's param-major (3K−1, N) layout as one (batch,
+        (3K−1)·n_t) transpose instead of a (batch·n_t, 3K−1) one. Same
+        math — columns of a matmul commute — pinned against the
+        `NeuralSplineCoupling` feed in tests. On the H100 it is +30% on the
+        NSF demo and −1.6% on the wide NSF against that feed
+        (`PERF.md`)."""
         batch, n_t = v.shape
         P = 3 * self.K - 1
         h = cond
@@ -242,8 +217,7 @@ class SplinePairStack(Bijector):
         raw_t = z.T.reshape(P, n_t * batch)
         x_flat = v.T.reshape(-1)  # element order t·batch + b — matches
         y_flat, ld_flat = rqs_pallas.rqs_fused_t(
-            x_flat, raw_t, float(self.B), bool(inverse),
-            bool(self.interpret))
+            x_flat, raw_t, float(self.B), bool(inverse))
         y_flat = checkpoint_name(y_flat, "rqs_out")
         ld_flat = checkpoint_name(ld_flat, "rqs_out")
         y = y_flat.reshape(n_t, batch).T
@@ -251,14 +225,12 @@ class SplinePairStack(Bijector):
         return y, ld_sum
 
     def _remat(self, body):
-        """Selective remat: save the RQS kernel outputs (tiny — one word
-        per element) and rematerialize everything else. The backward then
-        recomputes only the cheap conditioner matmuls; the expensive
-        kernel forward is NEVER re-run (plain `jax.checkpoint` re-runs
-        it: each block's second coupling consumes the first kernel's
-        output). Measured on the wide NSF config: plain remat and
-        no-remat tie at ~115 steps/s; this policy is the A/B'd winner
-        (benchmarks/KERNELS.md round-5 notes)."""
+        """Selective remat: save the spline outputs y and log-det (one word
+        each per element, named "rqs_out" on both the kernel and the oracle
+        path) and rematerialize everything else. The backward then
+        recomputes the conditioner matmuls but never re-runs a spline
+        forward (plain `jax.checkpoint` does: each block's second coupling
+        consumes the first spline's output)."""
         return jax.checkpoint(
             body,
             policy=jax.checkpoint_policies.save_only_these_names(
@@ -311,7 +283,6 @@ def NSF_layer(
     B: float,
     dtype=jnp.float32,
     backend: str = "auto",
-    interpret: bool = False,
     identity_init: bool = False,
     compute_dtype=None,
 ) -> list[NeuralSplineCoupling]:
@@ -319,10 +290,10 @@ def NSF_layer(
     (reference `neuralspline.jl:169-184`)."""
     k1, k2 = jax.random.split(key)
     c1 = NeuralSplineCoupling.make(k1, dim, hdims, K, B, range(0, dim, 2),
-                                   dtype, backend, interpret, identity_init,
+                                   dtype, backend, identity_init,
                                    compute_dtype)
     c2 = NeuralSplineCoupling.make(k2, dim, hdims, K, B, range(1, dim, 2),
-                                   dtype, backend, interpret, identity_init,
+                                   dtype, backend, identity_init,
                                    compute_dtype)
     return [c1, c2]
 
@@ -337,7 +308,6 @@ def nsf(
     dtype=jnp.float32,
     backend: str = "auto",
     scan: bool = True,
-    interpret: bool = False,
     identity_init: bool = False,
     remat: bool = False,
     compute_dtype=None,
@@ -345,10 +315,11 @@ def nsf(
 ) -> TransformedDistribution:
     """Neural spline flow (reference `neuralspline.jl:218-234` defaults).
 
-    ``scan=True`` stacks the blocks into a `Repeated` lax.scan — one Pallas
-    kernel call site regardless of depth (depth-independent compile).
-    ``interpret=True`` runs the ``backend='pallas'`` path in Pallas interpret
-    mode so it works off-TPU (numerics cross-checks on CPU).
+    ``scan=True`` stacks the blocks into a `Repeated` lax.scan — one spline
+    call site regardless of depth (depth-independent compile).
+    ``backend``: ``"auto"`` runs the fused Triton RQS kernel where
+    `device.use_rqs_kernel()` says so and the `ops/rqs.py` oracle elsewhere;
+    ``"pallas"`` / ``"oracle"`` force one.
     ``identity_init=True`` zero-initializes every coupling's final conditioner
     layer so the whole flow starts as the exact identity map — the stable
     initialization of the Durkan et al. reference implementation.
@@ -371,8 +342,8 @@ def nsf(
         q0 = DiagNormal.standard(q0, dtype)
     dim = q0.event_dim
     pairs = [
-        NSF_layer(k, dim, hdims, K, B, dtype, backend, interpret,
-                  identity_init, compute_dtype)
+        NSF_layer(k, dim, hdims, K, B, dtype, backend, identity_init,
+                  compute_dtype)
         for k in jax.random.split(key, nlayers)
     ]
     if scan:

@@ -8,7 +8,7 @@ The objective protocol matches the reference's — any callable
 better" and the trainer negates it into a loss
 (`src/NormalizingFlows.jl:69`).
 
-TPU notes:
+Compilation notes:
   * ``elbo`` (per-sample map, `elbo.jl:26-34`) and ``elbo_batch``
     (one fused batched traversal, `elbo.jl:65-99`) exist as separate entry
     points for API parity, but under XLA both compile to the same batched
@@ -142,7 +142,7 @@ def elbo_iw(
     ``log Z`` than `elbo_batch` (which is the K=1 case), at K× the compute.
     New capability: the reference only has the K=1 estimator. All shapes are
     static ``(K, n, d)``, so the whole estimator is one fused batched
-    traversal on the MXU.
+    traversal.
     """
     xs = flow.base.sample(key, (n_particles, n_samples))
     log_w = _elbo_terms(flow, logp, xs)  # (K, n)

@@ -22,8 +22,8 @@ __all__ = ["PartitionMask"]
 
 def _as_strided(idx: tuple[int, ...], dim: int):
     """If ``idx`` equals ``range(start, dim, step)`` return ``(start, step)``
-    (a static strided slice — on TPU a lane shuffle XLA fuses into
-    neighboring elementwise work, vs a general gather which materializes).
+    (a static strided slice, which XLA fuses into neighboring elementwise
+    work, vs a general gather which materializes).
     Decided at trace time from static aux data; None → gather fallback."""
     if not idx:
         return None

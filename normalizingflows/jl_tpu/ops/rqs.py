@@ -1,6 +1,6 @@
 """Rational-quadratic spline (RQS) transform — pure-jnp reference path.
 
-TPU-native replacement for the MonotonicSplines.jl kernels the reference
+JAX replacement for the MonotonicSplines.jl kernels the reference
 delegates to (`src/flows/neuralspline.jl:65-140`): parameter normalization
 (`rqs_params_from_nn`), forward (`rqs_forward`) and inverse (`rqs_inverse`)
 evaluation of the monotone rational-quadratic spline of Durkan, Bekasov,
@@ -9,8 +9,8 @@ Murray & Papamakarios, "Neural Spline Flows" (NeurIPS 2019), eqs. (4)-(8).
 This module is the numerics ORACLE: straight-line jnp that XLA fuses well
 and that autodiff differentiates exactly (lifting the reference's
 Zygote-only restriction for NSF, `src/flows/neuralspline.jl:207-212`).
-A fused Pallas kernel with a custom VJP lives in `rqs_pallas.py`; tests pin
-the two against each other.
+The fused Pallas (Triton) kernel with a custom VJP in `rqs_pallas.py` is
+pinned against it by tests and by `chip_smoke.py`.
 
 Shapes: the spline is elementwise over an arbitrary batch of scalars with
 per-element knot tables. ``x``: (...,); ``xs``/``ys``: (..., K+1) knot
@@ -19,8 +19,8 @@ coordinates; ``ds``: (..., K+1) derivatives at the knots. Outside the box
 boundary derivatives pinned to 1).
 
 The bin search is a broadcast compare-and-sum over the K+1 knot axis —
-no `searchsorted`, no dynamic control flow; on TPU this is K vectorized
-compares on the VPU (K≈10), which beats any scalar binary search.
+no `searchsorted`, no dynamic control flow: K vectorized compares (K≈10),
+which beats any scalar binary search.
 """
 
 from __future__ import annotations
@@ -43,13 +43,10 @@ DEFAULT_MIN_DERIVATIVE = 1e-3
 def _exact_cumsum(a: jax.Array) -> jax.Array:
     """Running sum over the last (K-sized) axis with EXACT per-step adds.
 
-    ``jnp.cumsum`` on TPU may lower to a triangular-ones matmul whose
-    DEFAULT MXU precision rounds f32 operands like bf16 — measured ~2e-4
-    relative knot-position drift at K=10, B=30 (the fused Pallas kernel
-    avoids the same trap in-kernel, `rqs_pallas._cumsum_rows`, and the
-    on-chip `benchmarks/tpu_check.py` lane caught the ORACLE drifting
-    0.0063 against it). K is tiny; ``associative_scan`` lowers to exact
-    vector adds on every backend."""
+    ``jnp.cumsum`` may lower to a triangular-ones matmul, which at default
+    precision can round f32 operands (TF32 on the GPU) — enough knot drift
+    to collapse the last bin against the pinned +B knot. K is tiny;
+    ``associative_scan`` lowers to exact vector adds on every backend."""
     return jax.lax.associative_scan(jnp.add, a, axis=-1)
 
 
@@ -101,7 +98,7 @@ def rqs_params_from_raw(
 
 def _select_bin(v: jax.Array, knots: jax.Array) -> jax.Array:
     """Index k of the bin containing v: largest k with knots[k] <= v,
-    clipped to [0, K−1]. Broadcast compare + sum (VPU-friendly)."""
+    clipped to [0, K−1]. Broadcast compare + sum (vectorized)."""
     K = knots.shape[-1] - 1
     k = jnp.sum(
         (v[..., None] >= knots[..., :-1]).astype(jnp.int32), axis=-1

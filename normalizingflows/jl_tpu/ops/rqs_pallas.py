@@ -1,38 +1,28 @@
-"""Fused rational-quadratic-spline Pallas TPU kernel.
+"""Fused rational-quadratic-spline kernel (Pallas, Triton route).
 
-The TPU-native replacement for the reference's one perf-critical kernel
-dependency, MonotonicSplines.jl (KernelAbstractions kernels consumed at
-`src/flows/neuralspline.jl:65-140`). One `pallas_call` fuses, per element:
+One `pallas_call` fuses, per element, what `ops/rqs.py` spreads over several
+XLA passes:
 
     raw conditioner outputs (3K−1)
       → softmax/cumsum knot normalization        (rqs_params_from_raw)
-      → bin search (compare+sum over K rows)
+      → bin search (compare over the K knots)
       → rational-quadratic forward/inverse + log-derivative
 
-so the (N, K+1)×3 knot tables never touch HBM — the kernel reads 3K−1 raw
-floats + 1 input and writes 2 outputs per element, the bandwidth floor.
+so the (N, K+1)×3 knot tables and the bin picks never touch device memory:
+the kernel reads 3K−1 raw values and x, and writes y and the log-derivative.
 
-Layout (v2, measured): ELEMENTS ride the 128-wide LANE axis and the 3K−1
-parameter rows ride the SUBLANE axis — i.e. the kernel consumes the
-TRANSPOSED (3K−1, N) parameter matrix. Per-knot slicing/concatenation
-(the cumsum, the lo/hi knot views) then moves whole sublane rows, which
-Mosaic does with cheap sublane shifts, and every vector op runs at full
-128-lane occupancy. The original layout (elements on sublanes, K params
-on lanes) left >85% of each vreg idle and paid a lane-shift for every
-knot concat — measured 8.4 GB/s at 4M elements on v5e; this layout
-reaches an order of magnitude higher (benchmarks/rqs_tune.py). The
-cumsum is an unrolled exact running sum (K is tiny; MXU-matmul cumsum
-rounds like bf16 and can collapse the last bin — see _cumsum_rows);
-bin-gathers are one-hot multiply-reductions over sublanes.
+Layout: param-major. ``raw_t`` is (3K−1, N). A block owns ``BLOCK``
+consecutive elements and loads parameter row j as one (BLOCK,) vector, which
+is coalesced across each warp. Every K-sized step (softmax max/sum, the exact
+running cumsum, the bin pick, the backward's reverse cumsum) is unrolled in
+Python over lists of (BLOCK,) vectors: the Triton lowering accepts only
+power-of-two shapes, so no (K, BLOCK) or (3K−1, BLOCK) value is ever built.
 
-The backward pass is a second Pallas kernel that RECOMPUTES the forward on
-the tile and applies `jax.vjp` *inside* the kernel (flops traded for HBM
-traffic; residuals never materialize). Exposed through `jax.custom_vjp`, so
-`jax.grad` works in both directions — lifting the reference's Zygote-only
-NSF restriction (`neuralspline.jl:207-212`).
-
-Numerics are pinned against the pure-jnp oracle in `ops/rqs.py`
-(tests/test_rqs_kernel.py) in interpret mode on CPU and compiled on TPU.
+The backward is a second kernel with a hand-derived reverse (closed form for
+the forward direction, implicit differentiation of the quadratic root for the
+inverse), exposed through `jax.custom_vjp`. Numerics are pinned against the
+`ops/rqs.py` oracle (tests/test_rqs_kernel.py, interpret mode on the CPU;
+`chip_smoke.py` compiled on the card).
 """
 
 from __future__ import annotations
@@ -42,127 +32,131 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from . import rqs as _oracle
 
-__all__ = ["rqs_fused", "rqs_fused_forward", "rqs_fused_inverse",
-           "rqs_fused_t"]
+__all__ = ["rqs_fused", "rqs_fused_t"]
 
-# Element lanes per grid step. Forward intermediates are ~40 (K, LANES)
-# rows; backward's in-kernel vjp roughly triples the live set, so it uses
-# the smaller tile.
-LANES_FWD = 2048
-LANES_BWD = 1024
-# v3 layout experiment: ROWS_FWD > 1 reshapes the element stream to
-# (ROWS, N/ROWS) so per-element tensors are (ROWS, L) — all 8 sublanes
-# carry elements — and the raw params become (3K−1, ROWS, L) 3-D blocks.
-# MEASURED SLOWER than v2 on v5e (97 vs 122 GB/s at 4M elements,
-# benchmarks/rqs_tune.py 2026-08-21): the (1, L) vreg under-occupancy it
-# targets is a minor term (the K-row tensors dominate the op count), and
-# the 3-D raw blocks fragment the HBM→VMEM DMA into R× smaller row
-# segments. Default stays 1 (= the v2 layout); the path is kept for the
-# sweep to re-check on future toolchains.
-ROWS_FWD = 1
+# Elements per block and warps per block: one element per thread (the
+# forward keeps ~60 K-sized vectors live, the backward about twice that).
+# Swept on the H100 at 131,072 elements (PERF.md): 128×4 led the forward +
+# backward pair; 1024 elements on 4 warps spills and is 5× slower.
+BLOCK = 128
+NUM_WARPS = 4
 
 
-def _cumsum_rows(a, K):
-    """Exact running sum down the sublane axis. (A matmul with a
-    triangular ones matrix would use the MXU, whose f32 passes round like
-    bf16 — enough error to collapse the last bin against the pinned +B
-    knot and produce log(0) = −inf log-dets. K is tiny; an unrolled
-    running sum is exact and cheap.)"""
-    rows = [a[:1]]
-    for j in range(1, K):
-        rows.append(rows[-1] + a[j:j + 1])
-    return jnp.concatenate(rows, axis=0)
+def _sum(rows):
+    return functools.reduce(jnp.add, rows)
 
 
-def _tile_tables(raw, B: float, K: int, dtype):
-    """Knot tables from raw params — shared by the forward tile and the
-    analytic backward (which re-derives them instead of saving them)."""
+def _softmax(rows):
+    m = functools.reduce(jnp.maximum, rows)
+    e = [jnp.exp(r - m) for r in rows]
+    s = _sum(e)
+    return [ej / s for ej in e]
+
+
+def _softplus(v):
+    return jnp.maximum(v, 0.0) + jnp.log1p(jnp.exp(-jnp.abs(v)))
+
+
+def _sigmoid(v):
+    return 1.0 / (1.0 + jnp.exp(-v))
+
+
+def _tables(raw, B: float, K: int, like):
+    """Per-bin knot endpoints from the 3K−1 raw rows.
+
+    Returns lists of K vectors (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi) plus
+    the softmax probabilities and the raw derivative rows the backward needs.
+    The cumsum is an exact running sum (a matmul cumsum may round its
+    operands and collapse the last bin onto the pinned +B knot)."""
     mbw = _oracle.DEFAULT_MIN_BIN_WIDTH
     mbh = _oracle.DEFAULT_MIN_BIN_HEIGHT
     mder = _oracle.DEFAULT_MIN_DERIVATIVE
-
-    # raw may arrive in a narrower storage dtype (bf16: halves the
-    # dominant HBM traffic term — 3K−1 of the 3K+2 words per element);
-    # all in-kernel math runs in x's dtype
-    raw = raw.astype(dtype)
-    w_raw = raw[:K]
-    h_raw = raw[K:2 * K]
+    p_w = _softmax(raw[:K])
+    p_h = _softmax(raw[K:2 * K])
     d_raw = raw[2 * K:]
+    lo = jnp.full_like(like, -B)
+    hi = jnp.full_like(like, B)
 
-    p_w = jax.nn.softmax(w_raw, axis=0)
-    widths = mbw + (1.0 - mbw * K) * p_w
-    p_h = jax.nn.softmax(h_raw, axis=0)
-    heights = mbh + (1.0 - mbh * K) * p_h
+    def knots(p, min_bin):
+        acc, out = None, []
+        for pj in p[:-1]:
+            bin_ = min_bin + (1.0 - min_bin * K) * pj
+            acc = bin_ if acc is None else acc + bin_
+            out.append(-B + 2.0 * B * acc)
+        return [lo] + out, out + [hi]
 
-    two_B = jnp.asarray(2.0 * B, dtype)
-    negB = jnp.asarray(-B, dtype)
-
-    xs_hi = negB + two_B * _cumsum_rows(widths, K)
-    ys_hi = negB + two_B * _cumsum_rows(heights, K)
-    # knots k=0..K: row 0 = −B, row k = xs_hi[k−1]; pin last to +B
-    # (we only need per-bin endpoints, so keep lo/hi views instead of a
-    # single (K+1)-row table — row concats are cheap sublane shifts)
-    xs_lo = jnp.concatenate([jnp.full_like(xs_hi[:1], -B),
-                             xs_hi[:-1]], axis=0)
-    ys_lo = jnp.concatenate([jnp.full_like(ys_hi[:1], -B),
-                             ys_hi[:-1]], axis=0)
-    xs_hi = jnp.concatenate([xs_hi[:-1], jnp.full_like(xs_hi[:1], B)],
-                            axis=0)
-    ys_hi = jnp.concatenate([ys_hi[:-1], jnp.full_like(ys_hi[:1], B)],
-                            axis=0)
-
-    interior = mder + jax.nn.softplus(d_raw)
-    one = jnp.ones_like(interior[:1])
-    d_lo = jnp.concatenate([one, interior], axis=0)        # d at knot k
-    d_hi = jnp.concatenate([interior, one], axis=0)        # d at knot k+1
-    return (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi,
+    xs_lo, xs_hi = knots(p_w, mbw)
+    ys_lo, ys_hi = knots(p_h, mbh)
+    interior = [mder + _softplus(d) for d in d_raw]
+    one = jnp.ones_like(like)
+    return (xs_lo, xs_hi, ys_lo, ys_hi, [one] + interior, interior + [one],
             p_w, p_h, d_raw)
 
 
-def _tile_transform(x, raw, B: float, K: int, inverse: bool):
-    """Pure-jnp tile computation: (1, L) x, (3K−1, L) raw → y, ld (1, L).
+def _bins(v, grid_lo, K):
+    """sel[j] = v >= lo_j for j = 1..K−1. Knots increase, so the bin is the
+    last j with sel true (0 if none), as the oracle's compare-and-sum."""
+    return [v >= grid_lo[j] for j in range(1, K)]
 
-    Written with Mosaic-friendly primitives only (sublane-axis slices,
-    one-hot gathers); shared by the forward and backward kernels and —
-    under standard jnp — identical in math to the `ops/rqs.py` oracle.
-    """
-    dtype = x.dtype
-    (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi,
-     _p_w, _p_h, _d_raw) = _tile_tables(raw, B, K, dtype)
 
-    Bc = jnp.asarray(B, dtype)
-    inside = (x >= -Bc) & (x <= Bc)
-    v = jnp.clip(x, -Bc, Bc)
+def _pick(sel, t):
+    out = t[0]
+    for j, s in enumerate(sel, start=1):
+        out = jnp.where(s, t[j], out)
+    return out
 
-    # bin index: #{k : v >= lo_k} − 1, clipped — compare+sum over K rows
-    grid_lo = xs_lo if not inverse else ys_lo
-    k = jnp.sum((v >= grid_lo).astype(jnp.int32), axis=0, keepdims=True) - 1
-    k = jnp.clip(k, 0, K - 1)
-    onehot = (
-        jax.lax.broadcasted_iota(
-            jnp.int32, (K,) + tuple(x.shape[1:]), 0) == k
-    ).astype(dtype)
 
-    def pick(t):
-        return jnp.sum(t * onehot, axis=0, keepdims=True)
+def _onehot(sel, K):
+    """onehot[j] = (bin == j), from the monotone compare vector."""
+    hot = []
+    for j in range(K):
+        below = sel[j - 1] if j > 0 else None
+        above = sel[j] if j < K - 1 else None
+        if below is None:
+            hot.append(jnp.logical_not(above))
+        elif above is None:
+            hot.append(below)
+        else:
+            hot.append(below & jnp.logical_not(above))
+    return hot
 
-    x_k, x_k1 = pick(xs_lo), pick(xs_hi)
-    y_k, y_k1 = pick(ys_lo), pick(ys_hi)
-    d_k, d_k1 = pick(d_lo), pick(d_hi)
 
-    # roundoff guard: normalization bounds w, h ≥ min_bin·2B mathematically;
-    # clamp so a degenerate bin can never reach log(0)/0-div even at the
-    # pinned ±B boundary
-    tiny = jnp.asarray(1e-6 * 2.0 * B, dtype)
+def _table_to_raw(g_lo, g_hi, p, min_bin, B, K):
+    """Reverse of softmax → affine bins → cumsum → (lo, hi) knot views.
+    Knot j+1 is read as hi of bin j and lo of bin j+1; the pinned ±B knots
+    carry no gradient."""
+    acc = jnp.zeros_like(p[0])
+    g_bins = [acc]
+    for j in range(K - 2, -1, -1):
+        acc = acc + 2.0 * B * (g_hi[j] + g_lo[j + 1])
+        g_bins.append(acc)
+    g_soft = [(1.0 - min_bin * K) * g for g in g_bins[::-1]]
+    dot = _sum([pj * gj for pj, gj in zip(p, g_soft)])
+    return [pj * (gj - dot) for pj, gj in zip(p, g_soft)]
+
+
+def _transform(x, raw, B: float, K: int, inverse: bool):
+    """(y, ld) of one block: ``x`` a vector, ``raw`` a list of 3K−1 vectors.
+    Same math as `ops/rqs.py`."""
+    xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi, *_ = _tables(raw, B, K, x)
+    inside = (x >= -B) & (x <= B)
+    v = jnp.clip(x, -B, B)
+    sel = _bins(v, ys_lo if inverse else xs_lo, K)
+    x_k, x_k1 = _pick(sel, xs_lo), _pick(sel, xs_hi)
+    y_k, y_k1 = _pick(sel, ys_lo), _pick(sel, ys_hi)
+    d_k, d_k1 = _pick(sel, d_lo), _pick(sel, d_hi)
+
+    # roundoff guard: normalization bounds w, h ≥ min_bin·2B; the clamp keeps
+    # a degenerate bin away from log(0) and 0-division at the pinned knots
+    tiny = 1e-6 * 2.0 * B
     w = jnp.maximum(x_k1 - x_k, tiny)
     h = jnp.maximum(y_k1 - y_k, tiny)
     s = h / w
     dsum = d_k1 + d_k - 2.0 * s
-
     if not inverse:
         xi = (v - x_k) / w
     else:
@@ -172,646 +166,218 @@ def _tile_transform(x, raw, B: float, K: int, inverse: bool):
         c = -s * dy
         disc = jnp.maximum(b * b - 4.0 * a * c, 0.0)
         xi = jnp.clip(2.0 * c / (-b - jnp.sqrt(disc)), 0.0, 1.0)
-
     xi1m = 1.0 - xi
     xi_prod = xi * xi1m
     denom = s + dsum * xi_prod
-    deriv_num = (s * s) * (
-        d_k1 * xi * xi + 2.0 * s * xi_prod + d_k * xi1m * xi1m
-    )
+    deriv_num = (s * s) * (d_k1 * xi * xi + 2.0 * s * xi_prod
+                           + d_k * xi1m * xi1m)
     ld = jnp.log(deriv_num) - 2.0 * jnp.log(denom)
-
     if not inverse:
         out = y_k + h * (s * xi * xi + d_k * xi_prod) / denom
     else:
         out = x_k + xi * w
         ld = -ld
-
-    out = jnp.where(inside, out, x)
-    ld = jnp.where(inside, ld, jnp.zeros_like(ld))
-    return out, ld
+    return jnp.where(inside, out, x), jnp.where(inside, ld, 0.0)
 
 
-def _rev_cumsum_rows(a, K):
-    """Exact reverse running sum down the sublane axis (the VJP of
-    `_cumsum_rows`; same unrolled-exact rationale)."""
-    rows = [a[K - 1:K]]
-    for j in range(K - 2, -1, -1):
-        rows.append(rows[-1] + a[j:j + 1])
-    return jnp.concatenate(rows[::-1], axis=0)
+def _backward(x, raw, g_out, gld, B: float, K: int, inverse: bool):
+    """Hand-derived reverse of `_transform`: (gx, list of 3K−1 graw rows).
 
-
-def _tile_bwd_analytic(x, raw, gy, gld, B: float, K: int):
-    """Hand-derived backward of the FORWARD tile (inverse=False — the
-    reverse-KL training path). Replaces the in-kernel `jax.vjp` of
-    `_tile_transform`, which re-runs the whole forward and then a
-    reverse tape; here the forward quantities are recomputed once and
-    every partial is closed-form (the spline derivative P/D² is exactly
-    exp(ld), already needed for the log-det). Math: reverse of Durkan
-    et al. eqs. 4–8 through the softmax/cumsum/softplus normalization.
-    Equality with autodiff is pinned by tests/test_rqs_kernel.py and the
-    compiled tpu_check lane."""
-    dtype = x.dtype
-    mbw = _oracle.DEFAULT_MIN_BIN_WIDTH
-    mbh = _oracle.DEFAULT_MIN_BIN_HEIGHT
+    Forward direction: the closed-form reverse of Durkan et al. eqs. 4–8
+    through the softmax/cumsum/softplus normalization (the spline derivative
+    P/D² is exp(ld)). Inverse direction: the inverse finds ξ* with
+    Y(ξ*; θ) = v, so by the implicit function theorem ∂ξ*/∂θ =
+    −(∂Y/∂θ)/(∂Y/∂ξ), ∂Y/∂ξ = w·P/D²; this differentiates the exact root,
+    which agrees with autodiff of the closed-form root away from
+    measure-zero clip and tie points."""
     (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi,
-     p_w, p_h, d_raw) = _tile_tables(raw, B, K, dtype)
+     p_w, p_h, d_raw) = _tables(raw, B, K, x)
+    inside = (x >= -B) & (x <= B)
+    v = jnp.clip(x, -B, B)
+    sel = _bins(v, ys_lo if inverse else xs_lo, K)
+    x_k, x_k1 = _pick(sel, xs_lo), _pick(sel, xs_hi)
+    y_k, y_k1 = _pick(sel, ys_lo), _pick(sel, ys_hi)
+    d_k, d_k1 = _pick(sel, d_lo), _pick(sel, d_hi)
 
-    Bc = jnp.asarray(B, dtype)
-    inside = (x >= -Bc) & (x <= Bc)
-    v = jnp.clip(x, -Bc, Bc)
-
-    k = jnp.sum((v >= xs_lo).astype(jnp.int32), axis=0, keepdims=True) - 1
-    k = jnp.clip(k, 0, K - 1)
-    onehot = (
-        jax.lax.broadcasted_iota(
-            jnp.int32, (K,) + tuple(x.shape[1:]), 0) == k
-    ).astype(dtype)
-
-    def pick(t):
-        return jnp.sum(t * onehot, axis=0, keepdims=True)
-
-    x_k, x_k1 = pick(xs_lo), pick(xs_hi)
-    y_k, y_k1 = pick(ys_lo), pick(ys_hi)
-    d_k, d_k1 = pick(d_lo), pick(d_hi)
-
-    tiny = jnp.asarray(1e-6 * 2.0 * B, dtype)
+    tiny = 1e-6 * 2.0 * B
     w_span, h_span = x_k1 - x_k, y_k1 - y_k
     w = jnp.maximum(w_span, tiny)
     h = jnp.maximum(h_span, tiny)
-    w_gate = (w_span > tiny).astype(dtype)  # maximum() gradient gates
-    h_gate = (h_span > tiny).astype(dtype)
     s = h / w
     dsum = d_k1 + d_k - 2.0 * s
-
-    xi = (v - x_k) / w
+    if not inverse:
+        xi = (v - x_k) / w
+    else:
+        dy = v - y_k
+        a = h * (s - d_k) + dy * dsum
+        b = h * d_k - dy * dsum
+        c = -s * dy
+        disc = jnp.maximum(b * b - 4.0 * a * c, 0.0)
+        xi = jnp.clip(2.0 * c / (-b - jnp.sqrt(disc)), 0.0, 1.0)
     xi1m = 1.0 - xi
     q = xi * xi1m
     D = s + dsum * q
     Ny = s * xi * xi + d_k * q
     R = d_k1 * xi * xi + 2.0 * s * q + d_k * xi1m * xi1m
     P = (s * s) * R
+    # outside the box the map is the identity with zero log-det
+    g_in = jnp.where(inside, g_out, 0.0)
+    gld_in = jnp.where(inside, gld, 0.0)
 
-    # zero the cotangents of outside-box elements (fwd: y=x, ld=0 there)
-    zero = jnp.zeros_like(gy)
-    gy_in = jnp.where(inside, gy, zero)
-    gld_in = jnp.where(inside, gld, zero)
+    if not inverse:
+        gD = g_in * (-h * Ny / (D * D)) + gld_in * (-2.0 / D)
+        gP = gld_in / P
+        gNy = g_in * h / D
+        g_xi = (gD * dsum * (1.0 - 2.0 * xi)
+                + gNy * (2.0 * s * xi + d_k * (1.0 - 2.0 * xi))
+                + gP * (s * s) * (2.0 * d_k1 * xi + 2.0 * s * (1.0 - 2.0 * xi)
+                                  - 2.0 * d_k * xi1m))
+        g_s = (gD * (1.0 - 2.0 * q) + gNy * xi * xi
+               + gP * (2.0 * s * R + 2.0 * (s * s) * q))
+        g_dk = gD * q + gNy * q + gP * (s * s) * xi1m * xi1m
+        g_dk1 = gD * q + gP * (s * s) * xi * xi
+        # s = h/w, xi = (v − x_k)/w
+        g_h = g_in * Ny / D + g_s / w
+        g_w = -g_s * h / (w * w) - g_xi * xi / w
+        g_v = g_xi / w
+        g_xk_extra = -g_xi / w
+        g_yk_extra = g_in
+    else:
+        # ld_out = −(log P − 2 log D): explicit partials at fixed ξ
+        gP_e = -gld_in / P
+        gD_e = 2.0 * gld_in / D
+        g_s_e = gD_e * (1.0 - 2.0 * q) + gP_e * (2.0 * s * R
+                                                 + 2.0 * (s * s) * q)
+        g_dk_e = gD_e * q + gP_e * (s * s) * xi1m * xi1m
+        g_dk1_e = gD_e * q + gP_e * (s * s) * xi * xi
+        # total cotangent reaching ξ: out = x_k + ξw, plus ld's ξ-derivative
+        Dp = dsum * (1.0 - 2.0 * xi)
+        Pp = (s * s) * (2.0 * d_k1 * xi + 2.0 * s * (1.0 - 2.0 * xi)
+                        - 2.0 * d_k * xi1m)
+        g_xi_tot = g_in * w - gld_in * (Pp / P - 2.0 * Dp / D)
+        dYdxi = w * P / (D * D)
+        coef = -g_xi_tot / dYdxi
+        # ∂Y/∂θ at fixed ξ for Y(ξ) = y_k + h·Ny/D
+        g_s = g_s_e + coef * h * (xi * xi * D - Ny * (1.0 - 2.0 * q)) / (D * D)
+        g_dk = g_dk_e + coef * h * q * (D - Ny) / (D * D)
+        g_dk1 = g_dk1_e - coef * h * Ny * q / (D * D)
+        g_h = coef * Ny / D + g_s / w
+        g_w = g_in * xi - g_s * h / (w * w)
+        g_v = g_xi_tot / dYdxi
+        g_xk_extra = g_in
+        g_yk_extra = coef
 
-    # elementwise closed-form reverse -----------------------------------
-    gD = gy_in * (-h * Ny / (D * D)) + gld_in * (-2.0 / D)
-    gP = gld_in / P
-    gNy = gy_in * h / D
-    g_h_direct = gy_in * Ny / D
-    g_yk_direct = gy_in
+    # spans → knot endpoints, through the max() clamps
+    g_w = jnp.where(w_span > tiny, g_w, 0.0)
+    g_h = jnp.where(h_span > tiny, g_h, 0.0)
+    g_xk, g_xk1 = g_xk_extra - g_w, g_w
+    g_yk, g_yk1 = g_yk_extra - g_h, g_h
 
-    g_xi = (gD * dsum * (1.0 - 2.0 * xi)
-            + gNy * (2.0 * s * xi + d_k * (1.0 - 2.0 * xi))
-            + gP * (s * s) * (2.0 * d_k1 * xi + 2.0 * s * (1.0 - 2.0 * xi)
-                              - 2.0 * d_k * xi1m))
-    g_s = (gD * (1.0 - 2.0 * q)
-           + gNy * xi * xi
-           + gP * (2.0 * s * R + 2.0 * (s * s) * q))
-    g_dk = gD * q + gNy * q + gP * (s * s) * xi1m * xi1m
-    g_dk1 = gD * q + gP * (s * s) * xi * xi
+    hot = _onehot(sel, K)
 
-    # s = h/w, xi = (v − x_k)/w
-    g_h = g_h_direct + g_s / w
-    g_w = -g_s * h / (w * w) - g_xi * xi / w
-    g_v = g_xi / w
+    def scatter(g):
+        return [jnp.where(hj, g, 0.0) for hj in hot]
 
-    # spans → knot endpoints (through the max() clamps)
-    g_w = g_w * w_gate
-    g_h = g_h * h_gate
-    g_xk1 = g_w
-    g_xk = -g_w - g_xi / w
-    g_yk1 = g_h
-    g_yk = g_yk_direct - g_h
-
-    # scatter row grads onto the picked bins ----------------------------
-    g_xs_lo = onehot * g_xk
-    g_xs_hi = onehot * g_xk1
-    g_ys_lo = onehot * g_yk
-    g_ys_hi = onehot * g_yk1
-    g_d_lo = onehot * g_dk
-    g_d_hi = onehot * g_dk1
-
-    # knot tables → widths/heights (cumsum reverse) ---------------------
-    # xs_hi row j (j<K−1) and xs_lo row j+1 both read cumsum output j;
-    # xs_hi's pinned +B row and xs_lo's pinned −B row carry no gradient
-    two_B = jnp.asarray(2.0 * B, dtype)
-
-    def table_to_raw(g_lo, g_hi, p, min_bin):
-        g_c = two_B * (g_hi[:-1] + g_lo[1:])
-        g_c = jnp.concatenate([g_c, jnp.zeros_like(g_c[:1])], axis=0)
-        g_bins = _rev_cumsum_rows(g_c, K)
-        g_soft = (1.0 - min_bin * K) * g_bins
-        # softmax VJP: p ⊙ (g − Σ p·g)
-        dot = jnp.sum(p * g_soft, axis=0, keepdims=True)
-        return p * (g_soft - dot)
-
-    g_w_raw = table_to_raw(g_xs_lo, g_xs_hi, p_w, mbw)
-    g_h_raw = table_to_raw(g_ys_lo, g_ys_hi, p_h, mbh)
-
-    # derivative tables → interior derivs (softplus reverse) ------------
-    # d_lo = [1, interior]; d_hi = [interior, 1]
-    g_interior = g_d_lo[1:] + g_d_hi[:-1]
-    g_d_raw = jax.nn.sigmoid(d_raw) * g_interior
-
-    graw = jnp.concatenate([g_w_raw, g_h_raw, g_d_raw],
-                           axis=0).astype(raw.dtype)
-    gx = jnp.where(inside, g_v, gy)
-    return gx, graw
-
-
-def _tile_bwd_analytic_inverse(x, raw, g_out, gld, B: float, K: int):
-    """Analytic backward of the INVERSE tile via implicit differentiation.
-
-    The inverse finds ξ* solving the forward identity Y(ξ; θ) = v (the
-    quadratic root), then emits out = x_k + ξ*·w and the negated
-    log-det. All v/θ dependence of the outputs routes through ξ* (the
-    log-det is a function of ξ* and the bin quantities only), so the
-    IFT gives ∂ξ*/∂θ = −(∂Y/∂θ)/(∂Y/∂ξ) with ∂Y/∂ξ = w·P/D² — the
-    forward partials derived for `_tile_bwd_analytic`, re-accumulated.
-    This differentiates the EXACT root rather than the clipped
-    closed-form root formula the tape differentiates; the two agree
-    except at measure-zero clip/tie boundaries."""
-    dtype = x.dtype
-    mbw = _oracle.DEFAULT_MIN_BIN_WIDTH
-    mbh = _oracle.DEFAULT_MIN_BIN_HEIGHT
-    (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi,
-     p_w, p_h, d_raw) = _tile_tables(raw, B, K, dtype)
-
-    Bc = jnp.asarray(B, dtype)
-    inside = (x >= -Bc) & (x <= Bc)
-    v = jnp.clip(x, -Bc, Bc)
-
-    k = jnp.sum((v >= ys_lo).astype(jnp.int32), axis=0, keepdims=True) - 1
-    k = jnp.clip(k, 0, K - 1)
-    onehot = (
-        jax.lax.broadcasted_iota(
-            jnp.int32, (K,) + tuple(x.shape[1:]), 0) == k
-    ).astype(dtype)
-
-    def pick(t):
-        return jnp.sum(t * onehot, axis=0, keepdims=True)
-
-    x_k, x_k1 = pick(xs_lo), pick(xs_hi)
-    y_k, y_k1 = pick(ys_lo), pick(ys_hi)
-    d_k, d_k1 = pick(d_lo), pick(d_hi)
-
-    tiny = jnp.asarray(1e-6 * 2.0 * B, dtype)
-    w_span, h_span = x_k1 - x_k, y_k1 - y_k
-    w = jnp.maximum(w_span, tiny)
-    h = jnp.maximum(h_span, tiny)
-    w_gate = (w_span > tiny).astype(dtype)
-    h_gate = (h_span > tiny).astype(dtype)
-    s = h / w
-    dsum = d_k1 + d_k - 2.0 * s
-
-    # recompute ξ* exactly as the forward inverse tile does
-    dy = v - y_k
-    a = h * (s - d_k) + dy * dsum
-    b = h * d_k - dy * dsum
-    c = -s * dy
-    disc = jnp.maximum(b * b - 4.0 * a * c, 0.0)
-    xi = jnp.clip(2.0 * c / (-b - jnp.sqrt(disc)), 0.0, 1.0)
-
-    xi1m = 1.0 - xi
-    q = xi * xi1m
-    D = s + dsum * q
-    Ny = s * xi * xi + d_k * q
-    R = d_k1 * xi * xi + 2.0 * s * q + d_k * xi1m * xi1m
-    P = (s * s) * R
-
-    zero = jnp.zeros_like(g_out)
-    g_out_in = jnp.where(inside, g_out, zero)
-    gld_in = jnp.where(inside, gld, zero)
-
-    # ld_out = −(log P − 2 log D): explicit partials at FIXED ξ
-    gP_e = -gld_in / P
-    gD_e = 2.0 * gld_in / D
-    g_s_e = gD_e * (1.0 - 2.0 * q) + gP_e * (2.0 * s * R
-                                             + 2.0 * (s * s) * q)
-    g_dk_e = gD_e * q + gP_e * (s * s) * xi1m * xi1m
-    g_dk1_e = gD_e * q + gP_e * (s * s) * xi * xi
-
-    # total cotangent reaching ξ: out = x_k + ξw, plus ld's ξ-derivative
-    Dp = dsum * (1.0 - 2.0 * xi)                           # D'(ξ)
-    Pp = (s * s) * (2.0 * d_k1 * xi + 2.0 * s * (1.0 - 2.0 * xi)
-                    - 2.0 * d_k * xi1m)                    # P'(ξ)
-    g_xi_tot = g_out_in * w - gld_in * (Pp / P - 2.0 * Dp / D)
-
-    # implicit function: Y(ξ) = y_k + h·Ny/D = v; ∂Y/∂ξ = w·P/D²
-    dYdxi = w * P / (D * D)
-    coef = -g_xi_tot / dYdxi                              # ∂ξ/∂θ factor
-
-    # ∂Y/∂θ at fixed ξ (forward-map partials)
-    Y_s = h * (xi * xi * D - Ny * (1.0 - 2.0 * q)) / (D * D)
-    Y_dk = h * q * (D - Ny) / (D * D)
-    Y_dk1 = -h * Ny * q / (D * D)
-    Y_h_dir = Ny / D
-    # ∂Y/∂y_k = 1
-
-    g_s_tot = g_s_e + coef * Y_s
-    g_dk = g_dk_e + coef * Y_dk
-    g_dk1 = g_dk1_e + coef * Y_dk1
-    g_h_dir = coef * Y_h_dir
-    g_yk_impl = coef                                      # via ∂Y/∂y_k
-
-    # v reaches ξ through Y(ξ*) = v: ∂ξ/∂v = 1/(∂Y/∂ξ)
-    g_v = g_xi_tot / dYdxi
-
-    # assemble knot-endpoint grads
-    g_w = g_out_in * xi - g_s_tot * h / (w * w)
-    g_h = g_h_dir + g_s_tot / w
-    g_w = g_w * w_gate
-    g_h = g_h * h_gate
-    g_xk1 = g_w
-    g_xk = g_out_in - g_w
-    g_yk1 = g_h
-    g_yk = g_yk_impl - g_h
-
-    g_xs_lo = onehot * g_xk
-    g_xs_hi = onehot * g_xk1
-    g_ys_lo = onehot * g_yk
-    g_ys_hi = onehot * g_yk1
-    g_d_lo = onehot * g_dk
-    g_d_hi = onehot * g_dk1
-
-    two_B = jnp.asarray(2.0 * B, dtype)
-
-    def table_to_raw(g_lo, g_hi, p, min_bin):
-        g_c = two_B * (g_hi[:-1] + g_lo[1:])
-        g_c = jnp.concatenate([g_c, jnp.zeros_like(g_c[:1])], axis=0)
-        g_bins = _rev_cumsum_rows(g_c, K)
-        g_soft = (1.0 - min_bin * K) * g_bins
-        dot = jnp.sum(p * g_soft, axis=0, keepdims=True)
-        return p * (g_soft - dot)
-
-    g_w_raw = table_to_raw(g_xs_lo, g_xs_hi, p_w, mbw)
-    g_h_raw = table_to_raw(g_ys_lo, g_ys_hi, p_h, mbh)
-    g_interior = g_d_lo[1:] + g_d_hi[:-1]
-    g_d_raw = jax.nn.sigmoid(d_raw) * g_interior
-
-    graw = jnp.concatenate([g_w_raw, g_h_raw, g_d_raw],
-                           axis=0).astype(raw.dtype)
+    g_w_raw = _table_to_raw(scatter(g_xk), scatter(g_xk1), p_w,
+                            _oracle.DEFAULT_MIN_BIN_WIDTH, B, K)
+    g_h_raw = _table_to_raw(scatter(g_yk), scatter(g_yk1), p_h,
+                            _oracle.DEFAULT_MIN_BIN_HEIGHT, B, K)
+    # d_lo = [1, interior], d_hi = [interior, 1]
+    g_d_lo, g_d_hi = scatter(g_dk), scatter(g_dk1)
+    g_d_raw = [_sigmoid(d_raw[j]) * (g_d_lo[j + 1] + g_d_hi[j])
+               for j in range(K - 1)]
     gx = jnp.where(inside, g_v, g_out)
-    return gx, graw
+    return gx, g_w_raw + g_h_raw + g_d_raw
 
 
-# Switch for the analytic backward (both directions: forward/training
-# uses the direct closed-form reverse, inverse/density uses the
-# implicit-differentiation reverse). Flip to False to fall back to the
-# jax.vjp-in-kernel tape for debugging/toolchain comparisons.
-ANALYTIC_BWD = True
+def _block(n):
+    idx = pl.program_id(0) * BLOCK + jnp.arange(BLOCK)
+    return idx, idx < n
 
 
-def _fwd_kernel(x_ref, raw_ref, y_ref, ld_ref, *, B, K, inverse):
-    y, ld = _tile_transform(x_ref[:], raw_ref[:], B, K, inverse)
-    y_ref[:] = y
-    ld_ref[:] = ld
+def _load_rows(ref, idx, mask, dtype):
+    # raw may be stored narrower (bf16 under the mixed-precision policy);
+    # all in-kernel math runs in x's dtype
+    return [plgpu.load(ref.at[j, idx], mask=mask, other=0.0).astype(dtype)
+            for j in range(ref.shape[0])]
 
 
-def _fwd_kernel_rows(x_ref, raw_ref, y_ref, ld_ref, *, B, K, inverse):
-    """v3 layout: x block (R, L), raw block (3K−1, R, L). The leading
-    unit axis added here mirrors the v2 (1, L) convention so
-    `_tile_transform` is layout-agnostic."""
-    y, ld = _tile_transform(x_ref[:][None], raw_ref[:], B, K, inverse)
-    y_ref[:] = y[0]
-    ld_ref[:] = ld[0]
+def _fwd_kernel(x_ref, raw_ref, y_ref, ld_ref, *, n, B, K, inverse):
+    idx, mask = _block(n)
+    x = plgpu.load(x_ref.at[idx], mask=mask, other=0.0)
+    y, ld = _transform(x, _load_rows(raw_ref, idx, mask, x.dtype), B, K,
+                       inverse)
+    plgpu.store(y_ref.at[idx], y, mask=mask)
+    plgpu.store(ld_ref.at[idx], ld, mask=mask)
 
 
 def _bwd_kernel(x_ref, raw_ref, gy_ref, gld_ref, gx_ref, graw_ref,
-                *, B, K, inverse):
-    if ANALYTIC_BWD:
-        fn = (_tile_bwd_analytic_inverse if inverse
-              else _tile_bwd_analytic)
-        gx, graw = fn(x_ref[:], raw_ref[:], gy_ref[:], gld_ref[:], B, K)
-        gx_ref[:] = gx
-        graw_ref[:] = graw
-        return
-
-    def fn(x, raw):
-        return _tile_transform(x, raw, B, K, inverse)
-
-    _, vjp = jax.vjp(fn, x_ref[:], raw_ref[:])
-    gx, graw = vjp((gy_ref[:], gld_ref[:]))
-    gx_ref[:] = gx
-    graw_ref[:] = graw
+                *, n, B, K, inverse):
+    idx, mask = _block(n)
+    x = plgpu.load(x_ref.at[idx], mask=mask, other=0.0)
+    gy = plgpu.load(gy_ref.at[idx], mask=mask, other=0.0)
+    gld = plgpu.load(gld_ref.at[idx], mask=mask, other=0.0)
+    gx, graw = _backward(x, _load_rows(raw_ref, idx, mask, x.dtype), gy, gld,
+                         B, K, inverse)
+    plgpu.store(gx_ref.at[idx], gx, mask=mask)
+    for j, g in enumerate(graw):
+        plgpu.store(graw_ref.at[j, idx], g.astype(graw_ref.dtype), mask=mask)
 
 
-def _fwd_kernel_e(x_ref, raw_ref, y_ref, ld_ref, *, B, K, inverse):
-    """Elem-major variant: raw block (L, P≥3K−1) as the conditioner
-    NATIVELY emits it (row-major (batch, n_t, 3K−1) reshapes to (N, 3K−1)
-    for free); one in-VMEM transpose per tile replaces the (3K−1, N) XLA
-    transpose the param-major kernel forced the caller to materialize."""
-    raw_t = raw_ref[:].T[: 3 * K - 1]
-    y, ld = _tile_transform(x_ref[:], raw_t, B, K, inverse)
-    y_ref[:] = y
-    ld_ref[:] = ld
-
-
-def _bwd_kernel_e(x_ref, raw_ref, gy_ref, gld_ref, gx_ref, graw_ref,
-                  *, B, K, inverse):
-    P = graw_ref.shape[-1]
-
-    def fn(x, raw_t):
-        return _tile_transform(x, raw_t, B, K, inverse)
-
-    raw_t = raw_ref[:].T[: 3 * K - 1]
-    _, vjp = jax.vjp(fn, x_ref[:], raw_t)
-    gx, graw_t = vjp((gy_ref[:], gld_ref[:]))
-    gx_ref[:] = gx
-    if P > 3 * K - 1:  # padded param columns carry zero cotangent
-        graw_t = jnp.concatenate(
-            [graw_t, jnp.zeros((P - (3 * K - 1),) + graw_t.shape[1:],
-                               graw_t.dtype)], axis=0)
-    graw_ref[:] = graw_t.T
-
-
-def _call_fwd_e(x_flat, raw_e, B, K, inverse, interpret):
-    n = x_flat.shape[0]
-    L = LANES_FWD
-    n_pad = (-n) % L
-    xp = jnp.pad(x_flat, (0, n_pad))[None, :]
-    rp = jnp.pad(raw_e, ((0, n_pad), (0, 0)))
-    P = rp.shape[1]
-    grid = (xp.shape[1] // L,)
-    kern = functools.partial(_fwd_kernel_e, B=B, K=K, inverse=inverse)
-    y, ld = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((L, P), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct(xp.shape, x_flat.dtype),
-            jax.ShapeDtypeStruct(xp.shape, x_flat.dtype),
-        ],
+def _call(kernel, name, n, out_shape, interpret, *args):
+    return pl.pallas_call(
+        kernel,
+        grid=(pl.cdiv(n, BLOCK),),
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(xp, rp)
-    return y[0, :n], ld[0, :n]
+        name=name,
+    )(*args)
 
 
-def _call_bwd_e(x_flat, raw_e, gy, gld, B, K, inverse, interpret):
-    n = x_flat.shape[0]
-    L = LANES_BWD
-    n_pad = (-n) % L
-    xp = jnp.pad(x_flat, (0, n_pad))[None, :]
-    rp = jnp.pad(raw_e, ((0, n_pad), (0, 0)))
-    P = rp.shape[1]
-    gyp = jnp.pad(gy, (0, n_pad))[None, :]
-    gldp = jnp.pad(gld, (0, n_pad))[None, :]
-    grid = (xp.shape[1] // L,)
-    kern = functools.partial(_bwd_kernel_e, B=B, K=K, inverse=inverse)
-    gx, graw = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((L, P), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((L, P), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct(xp.shape, x_flat.dtype),
-            jax.ShapeDtypeStruct(rp.shape, raw_e.dtype),
-        ],
-        interpret=interpret,
-    )(xp, rp, gyp, gldp)
-    return gx[0, :n], graw[:n]
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5))
-def rqs_fused_e(x_flat, raw_e, B, K, inverse=False, interpret=False):
-    """Fused RQS on ELEM-MAJOR inputs: ``x_flat`` (N,), ``raw_e``
-    (N, P) with the 3K−1 raw params in the leading columns (P ≥ 3K−1 may
-    be padded; pad columns are ignored and get zero cotangent). This is
-    the conditioner's native layout — no transpose materializes anywhere
-    in the flow path (the per-tile transpose runs in VMEM)."""
-    return _call_fwd_e(x_flat, raw_e, B, K, inverse, interpret)
-
-
-def _rqs_fused_e_fwd(x_flat, raw_e, B, K, inverse, interpret):
-    out = rqs_fused_e(x_flat, raw_e, B, K, inverse, interpret)
-    return out, (x_flat, raw_e)
-
-
-def _rqs_fused_e_bwd(B, K, inverse, interpret, res, g):
-    x_flat, raw_e = res
-    gy, gld = g
-    gx, graw = _call_bwd_e(x_flat, raw_e, gy, gld, B, K, inverse, interpret)
-    return gx, graw
-
-
-rqs_fused_e.defvjp(_rqs_fused_e_fwd, _rqs_fused_e_bwd)
-
-
-def _to_rows(x_flat, raw_t, L):
-    """Pad N to a multiple of L: x (1, Np), raw_t (3K−1, Np)."""
-    n = x_flat.shape[0]
-    n_pad = (-n) % L
-    xp = jnp.pad(x_flat, (0, n_pad))[None, :]
-    rp = jnp.pad(raw_t, ((0, 0), (0, n_pad)))
-    return xp, rp
-
-
-def _call_fwd(x_flat, raw_t, B, K, inverse, interpret):
-    n = x_flat.shape[0]
-    L, R = LANES_FWD, ROWS_FWD
-    # rows layout pads N up to a multiple of R·L — only worth it when the
-    # stream fills at least one full block (large-batch sampling/serving);
-    # small batches (the demo train configs) keep the v2 row layout
-    if R > 1 and n >= R * L:
-        return _call_fwd_rows(x_flat, raw_t, B, K, inverse, interpret, L, R)
-    xp, rp = _to_rows(x_flat, raw_t, L)
-    grid = (xp.shape[1] // L,)
-    kern = functools.partial(_fwd_kernel, B=B, K=K, inverse=inverse)
-    y, ld = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3 * K - 1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct(xp.shape, x_flat.dtype),
-            jax.ShapeDtypeStruct(xp.shape, x_flat.dtype),
-        ],
-        interpret=interpret,
-    )(xp, rp)
-    return y[0, :n], ld[0, :n]
-
-
-def _call_fwd_rows(x_flat, raw_t, B, K, inverse, interpret, L, R):
-    """v3: elements viewed as an (R, N/R) matrix so every per-element
-    tensor in the kernel is (R, L) — full 8-sublane vreg occupancy for the
-    non-K-row ops (the v2 (1, L) rows used 1 of 8 sublanes)."""
-    n = x_flat.shape[0]
-    n_pad = (-n) % (R * L)
-    np_ = n + n_pad
-    xp = jnp.pad(x_flat, (0, n_pad)).reshape(R, np_ // R)
-    rp = jnp.pad(raw_t, ((0, 0), (0, n_pad))).reshape(
-        raw_t.shape[0], R, np_ // R)
-    grid = (np_ // R // L,)
-    kern = functools.partial(_fwd_kernel_rows, B=B, K=K, inverse=inverse)
-    y, ld = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((R, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3 * K - 1, R, L), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((R, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct(xp.shape, x_flat.dtype),
-            jax.ShapeDtypeStruct(xp.shape, x_flat.dtype),
-        ],
-        interpret=interpret,
-    )(xp, rp)
-    return y.reshape(-1)[:n], ld.reshape(-1)[:n]
-
-
-def _call_bwd(x_flat, raw_t, gy, gld, B, K, inverse, interpret):
-    n = x_flat.shape[0]
-    L = LANES_BWD
-    xp, rp = _to_rows(x_flat, raw_t, L)
-    gyp = jnp.pad(gy, (0, xp.shape[1] - n))[None, :]
-    gldp = jnp.pad(gld, (0, xp.shape[1] - n))[None, :]
-    grid = (xp.shape[1] // L,)
-    kern = functools.partial(_bwd_kernel, B=B, K=K, inverse=inverse)
-    gx, graw = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3 * K - 1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3 * K - 1, L), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct(xp.shape, x_flat.dtype),
-            jax.ShapeDtypeStruct(rp.shape, raw_t.dtype),
-        ],
-        interpret=interpret,
-    )(xp, rp, gyp, gldp)
-    return gx[0, :n], graw[:, :n]
-
-
-# custom_vjp core in the kernel's native PARAM-MAJOR layout (raw_t =
-# (3K−1, N)): high-throughput callers (large-batch sampling/serving,
-# benchmarks/roofline.py) feed it directly and never pay a transpose; the
-# elem-major wrapper below transposes OUTSIDE the custom_vjp, so in the
-# flow path XLA is free to fuse that transpose into the conditioner matmul
-# that produces raw (a layout choice, not a copy).
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
 def rqs_fused_t(x_flat, raw_t, B, inverse=False, interpret=False):
     """Fused RQS on param-major inputs: ``x_flat`` (N,), ``raw_t``
-    (3K−1, N). Returns (out (N,), elementwise log|dy/dx| (N,))."""
+    (3K−1, N). Returns (out (N,), elementwise log|dy/dx| (N,)).
+    ``interpret=True`` runs the kernel in the Pallas interpreter (tests on
+    the CPU)."""
+    n = x_flat.shape[0]
     K = (raw_t.shape[0] + 1) // 3
-    return _call_fwd(x_flat, raw_t, B, K, inverse, interpret)
+    kern = functools.partial(_fwd_kernel, n=n, B=float(B), K=K,
+                             inverse=bool(inverse))
+    out = jax.ShapeDtypeStruct(x_flat.shape, x_flat.dtype)
+    y, ld = _call(kern, "rqs_fwd", n, (out, out), interpret, x_flat, raw_t)
+    return y, ld
 
 
 def _rqs_fused_t_fwd(x_flat, raw_t, B, inverse, interpret):
-    out = rqs_fused_t(x_flat, raw_t, B, inverse, interpret)
-    return out, (x_flat, raw_t)
+    return rqs_fused_t(x_flat, raw_t, B, inverse, interpret), (x_flat, raw_t)
 
 
 def _rqs_fused_t_bwd(B, inverse, interpret, res, g):
     x_flat, raw_t = res
     gy, gld = g
+    n = x_flat.shape[0]
     K = (raw_t.shape[0] + 1) // 3
-    gx, graw_t = _call_bwd(x_flat, raw_t, gy, gld, B, K, inverse, interpret)
+    kern = functools.partial(_bwd_kernel, n=n, B=float(B), K=K,
+                             inverse=bool(inverse))
+    args = (x_flat, raw_t, gy.astype(x_flat.dtype), gld.astype(x_flat.dtype))
+    shapes = (jax.ShapeDtypeStruct(x_flat.shape, x_flat.dtype),
+              jax.ShapeDtypeStruct(raw_t.shape, raw_t.dtype))
+    gx, graw_t = _call(kern, "rqs_bwd", n, shapes, interpret, *args)
     return gx, graw_t
 
 
 rqs_fused_t.defvjp(_rqs_fused_t_fwd, _rqs_fused_t_bwd)
 
 
-# Flow-path layout switch: True → the elem-major kernel (in-VMEM per-tile
-# transpose; the conditioner's (..., 3K−1) output feeds the kernel with NO
-# XLA transpose materializing). MEASURED NET LOSS on v5e (2026-08-21):
-# the NSF wide train step ran 42.5 vs 60.3 steps/s — the XLA-side
-# transposes around the param-major kernel are cheaper than moving the
-# transpose into every tile (Mosaic's (L, 3K−1)→(3K−1, L) in-register
-# transpose costs ~6% fwd / ~24% bwd standalone, and the hypothesized
-# transpose savings did not materialize: XLA fuses or pipelines them
-# well). Default stays False (param-major); the variant is kept
-# correctness-pinned (bitwise-identical outputs) for future toolchains.
-ELEM_MAJOR = False
-
-
-def rqs_fused(
-    x: jax.Array,
-    raw: jax.Array,
-    B: float,
-    inverse: bool = False,
-    interpret: bool = False,
-) -> tuple[jax.Array, jax.Array]:
-    """Fused RQS transform of ``x`` (..., ) by per-element raw parameters
-    ``raw`` (..., 3K−1). Returns (out, elementwise log|dy/dx|) — the fused
-    equivalent of `rqs_params_from_raw` + `rqs_forward`/`rqs_inverse`."""
-    batch_shape = x.shape
-    x_flat = x.reshape(-1)
-    K = (raw.shape[-1] + 1) // 3
-    if ELEM_MAJOR:
-        raw_e = raw.reshape(-1, raw.shape[-1])  # contiguous — free
-        y, ld = rqs_fused_e(x_flat, raw_e, float(B), K, bool(inverse),
-                            bool(interpret))
-    else:
-        raw_t = raw.reshape(-1, raw.shape[-1]).T
-        y, ld = rqs_fused_t(x_flat, raw_t, float(B), bool(inverse),
-                            bool(interpret))
-    return y.reshape(batch_shape), ld.reshape(batch_shape)
-
-
-def rqs_fused_forward(x, raw, B, **kw):
-    return rqs_fused(x, raw, B, inverse=False, **kw)
-
-
-def rqs_fused_inverse(y, raw, B, **kw):
-    return rqs_fused(y, raw, B, inverse=True, **kw)
+def rqs_fused(x, raw, B, inverse=False, interpret=False):
+    """Fused RQS of ``x`` (...,) by per-element raw parameters ``raw``
+    (..., 3K−1): the fused equivalent of `rqs_params_from_raw` +
+    `rqs_forward`/`rqs_inverse`. Returns (out, elementwise log|dy/dx|)."""
+    raw_t = raw.reshape(-1, raw.shape[-1]).T
+    y, ld = rqs_fused_t(x.reshape(-1), raw_t, float(B), bool(inverse),
+                        bool(interpret))
+    return y.reshape(x.shape), ld.reshape(x.shape)

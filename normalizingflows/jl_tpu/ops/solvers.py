@@ -4,7 +4,7 @@ The reference's planar/radial inverses go through Bijectors.jl's adaptive
 root-finder (exercised by `test/flow.jl:158-172, 224-238`). Adaptive
 iteration counts are hostile to XLA (dynamic control flow), so here the
 solve is a FIXED-iteration bisection bracket followed by Newton polish —
-fully vectorized over the batch on the VPU, jit/vmap/grad-safe.
+fully vectorized over the batch, jit/vmap/grad-safe.
 
 Differentiation is IMPLICIT (`lax.custom_root`): the backward pass applies
 the implicit-function theorem ∂x/∂θ = −(∂f/∂θ)/(∂f/∂x) at the root instead

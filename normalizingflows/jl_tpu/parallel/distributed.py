@@ -1,12 +1,11 @@
 """Multi-host startup and cross-host conventions.
 
-The reference is strictly single-process (SURVEY §2c). On TPU pods the same
-SPMD program runs on every host: `initialize()` wires up the JAX distributed
-runtime (`jax.distributed.initialize` reads the TPU metadata automatically
-on Cloud TPU; explicit args cover other launchers), after which
-`jax.devices()` spans the whole slice and the 1-D batch mesh from
-`parallel.mesh` covers all chips — gradient psum and the ELBO mean ride ICI
-within a slice and DCN across slices with no further code changes.
+The reference is strictly single-process (SURVEY §2c). On a multi-host
+cluster the same SPMD program runs on every host: `initialize()` wires up
+the JAX distributed runtime (explicit args, or launcher variables it
+detects), after which `jax.devices()` spans every host's GPUs and the 1-D
+batch mesh from `parallel.mesh` covers them all — gradient psum and the
+ELBO mean become cross-host collectives with no further code changes.
 
 Reproducibility contract: per-shard PRNG streams are derived by
 `fold_in(key, global_shard_index)` (`parallel/sharded.py`), so an N-host run
@@ -47,9 +46,8 @@ def detect_cluster_env(
       * OpenMPI (mpirun): `OMPI_MCA_orte_hnp_uri` (host extracted) +
         `OMPI_COMM_WORLD_SIZE` + `OMPI_COMM_WORLD_RANK`.
 
-    Returns (None, None, None) when nothing is recognized — on Cloud TPU
-    that is the correct answer: `jax.distributed.initialize()` reads the
-    TPU metadata server itself.
+    Returns (None, None, None) when nothing is recognized; then
+    `jax.distributed.initialize()` is left to its own cluster detection.
     """
     env = os.environ if environ is None else environ
 
@@ -85,8 +83,8 @@ def _slurm_first_host(nodelist: str) -> str:
 
     Handles every `scontrol show hostnames`-style shape:
     ``host[001-004,007]`` → host001; ``host[005,009-012]`` → host005;
-    ``hosta,hostb`` → hosta; ``tpu-[3-4]srv,x`` (suffix after brackets) →
-    tpu-3srv. Only the FIRST host is needed (it runs the coordinator).
+    ``hosta,hostb`` → hosta; ``gpu-[3-4]srv,x`` (suffix after brackets) →
+    gpu-3srv. Only the FIRST host is needed (it runs the coordinator).
     """
     # split on commas OUTSIDE brackets to isolate the first element
     depth, first = 0, []
@@ -118,8 +116,7 @@ def initialize(
 ) -> None:
     """Initialize the JAX distributed runtime (idempotent, safe on 1 host).
 
-    On Cloud TPU all arguments are auto-detected by JAX itself; explicit
-    args override everything; otherwise ``detect_env=True`` fills them from
+    Explicit args override everything; otherwise ``detect_env=True`` fills them from
     SLURM / OpenMPI / NF_* launcher variables (`detect_cluster_env`)."""
     if coordinator_address is None and detect_env:
         coordinator_address, det_n, det_i = detect_cluster_env()

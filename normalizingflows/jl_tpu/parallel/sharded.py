@@ -6,8 +6,8 @@ Design (SURVEY §2c): parameters replicated, MC sample batch sharded over a
 `AbstractRNG` through everything (`src/NormalizingFlows.jl:55`); here N-shard
 runs are statistically (not bitwise) equivalent to 1-shard runs with N×
 the samples. The per-shard partial means are combined with `lax.pmean`
-(an ICI all-reduce on TPU); gradients of the shard_mapped objective
-automatically produce the matching psum.
+(an all-reduce, over NVLink between GPUs); gradients of the shard_mapped
+objective automatically produce the matching psum.
 """
 
 from __future__ import annotations
@@ -16,13 +16,8 @@ from functools import partial
 from typing import Any, Callable
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.7 exposes shard_map at top level
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
 
 from ..models.distributions import TransformedDistribution
 from .mesh import BATCH_AXIS
@@ -59,14 +54,15 @@ def shard_objective(
         local_n = n // ndev
 
         @partial(
-            _shard_map,
+            jax.shard_map,
             mesh=mesh,
             in_specs=(P(), P()),
             out_specs=P(),
-            # pallas_call results carry no varying-mesh-axes metadata, so
-            # the static vma replication check cannot see through them
-            # (jax ≥ 0.8); collectives here are explicit (pmean), so the
-            # check adds nothing — disable it rather than fork the kernel
+            # the custom-VJP rules on the path (the mixed-precision Dense,
+            # the RQS kernel) return per-shard cotangents for replicated
+            # weights, which the varying-axes check rejects; the only
+            # collectives are the explicit pmean and the gradient psum that
+            # autodiff of shard_map inserts for replicated inputs
             check_vma=False,
         )
         def run(key, flow):
@@ -97,8 +93,8 @@ def sample_sharded(
         raise ValueError(f"n={n} must divide evenly over {ndev} devices")
     local_n = n // ndev
 
-    @partial(_shard_map, mesh=mesh, in_specs=(P(), P()),
-             out_specs=P(axis_name, None), check_vma=False)
+    @partial(jax.shard_map, mesh=mesh, in_specs=(P(), P()),
+             out_specs=P(axis_name, None), check_vma=False)  # as above
     def run(key, flow):
         k = per_shard_key(key, axis_name)
         return flow.sample(k, (local_n,))

@@ -1,4 +1,4 @@
-"""Training API: the TPU-native `train_flow` / `optimize` pair.
+"""Training API: the `train_flow` / `optimize` pair.
 
 Reference: `src/NormalizingFlows.jl:51-86` (train_flow) driving
 `src/optimize.jl:57-108` (generic SGD loop). Key re-design decisions:
@@ -11,7 +11,7 @@ Reference: `src/NormalizingFlows.jl:51-86` (train_flow) driving
     → grad → Adam update) is ONE jitted `train_step`; iterations are run in
     `lax.scan` chunks so the hot loop never leaves the device. Host work
     (progress display, callbacks, convergence predicate) happens at chunk
-    boundaries on fetched stats — the TPU mapping described in SURVEY §3.1.
+    boundaries on fetched stats — the mapping described in SURVEY §3.1.
   * The AD-backend axis of the reference (`src/optimize.jl:8-14`, 5 backends
     via DifferentiationInterface) collapses to `jax.value_and_grad`; the
     "prepare" step maps to jit compilation caching.
@@ -365,7 +365,3 @@ def optimize(
         **kwargs,
     )
 
-
-# NOTE: `train_realnvp_fused` (the retired whole-run Pallas trainer) moved
-# to `experimental.fused_flow` (VERDICT r4 item 7); `normalizingflows.
-# train_realnvp_fused` still resolves via the package-level lazy __getattr__.

@@ -2,26 +2,25 @@
 
 The reference's only observability is a ProgressMeter line with it/s
 (`src/optimize.jl:4-6,69`; SURVEY §5 lists tracing/profiling as absent).
-Here: `jax.profiler` trace capture around any callable, and a robust
-device-step timer that synchronizes by fetching a scalar result to the host
-(`block_until_ready` can return early on tunneled/remote TPU backends) and
-uses a two-size slope so fixed dispatch overhead cancels.
+Here: `jax.profiler` trace capture around any callable, and timers that end
+every timed call in `jax.block_until_ready` and keep the compiling call out
+of the timed window.
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 from typing import Callable
 
 import jax
-import jax.numpy as jnp
 
-__all__ = ["trace", "time_scan_steps", "sync_fetch"]
+__all__ = ["trace", "time_call", "time_scan_steps"]
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/jax-trace"):
+def trace(log_dir: str):
     """Capture a `jax.profiler` trace (view with TensorBoard / xprof)."""
     jax.profiler.start_trace(log_dir)
     try:
@@ -30,9 +29,20 @@ def trace(log_dir: str = "/tmp/jax-trace"):
         jax.profiler.stop_trace()
 
 
-def sync_fetch(x) -> float:
-    """Force execution to complete by fetching a scalar to the host."""
-    return float(jnp.asarray(x).reshape(-1)[0])
+def time_call(fn: Callable, *args, reps: int = 5,
+              warmup: bool = True) -> list[float]:
+    """Wall seconds of ``reps`` calls of ``fn(*args)``, each ended by
+    `jax.block_until_ready`, after one untimed call that compiles and
+    warms up (``warmup=False`` skips it, for callers that take turns
+    between variants already warmed up)."""
+    if warmup:
+        jax.block_until_ready(fn(*args))
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn(*args))
+        times.append(time.perf_counter() - t0)
+    return times
 
 
 def time_scan_steps(
@@ -40,22 +50,6 @@ def time_scan_steps(
     n: int = 2000,
     reps: int = 3,
 ) -> float:
-    """Per-step seconds of a device-side loop.
-
-    ``run_steps(n)`` must execute n steps on-device and return an array
-    whose value depends on every step (e.g. the final loss). Measures
-    time(2n) − time(n) so compile/dispatch/fetch constants cancel.
-    """
-
-    def timed(m):
-        sync_fetch(run_steps(m))  # compile + warm
-        best = float("inf")
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            sync_fetch(run_steps(m))
-            best = min(best, time.perf_counter() - t0)
-        return best
-
-    t1 = timed(n)
-    t2 = timed(2 * n)
-    return max((t2 - t1) / n, 1e-12)
+    """Median per-step seconds of a device-side loop: ``run_steps(n)``
+    executes n steps on the device."""
+    return statistics.median(time_call(run_steps, n, reps=reps)) / n

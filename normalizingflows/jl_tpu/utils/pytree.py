@@ -1,6 +1,6 @@
 """Pytree module system: frozen dataclasses registered as JAX pytrees.
 
-This is the TPU-native replacement for the reference's Functors.jl machinery
+This is the JAX replacement for the reference's Functors.jl machinery
 (`@functor` registration, `Optimisers.destructure`, `@leaf` freezing — see
 reference `src/NormalizingFlows.jl:67` and `test/interface.jl:21`). Instead of
 flattening parameters to a single vector, modules ARE pytrees: `jax.grad`,
@@ -8,7 +8,7 @@ flattening parameters to a single vector, modules ARE pytrees: `jax.grad`,
 boolean mask pytree (`trainable_mask`), mirroring Optimisers.jl's
 `trainable(model)` protocol and Functors' `@leaf` freezing.
 
-Design notes (TPU-first):
+Design notes:
   * Static fields (ints, tuples, callables, strings) go to pytree aux data so
     they become compile-time constants under `jit` — no dynamic shapes.
   * Data fields are jnp arrays (or sub-modules); they are traced.

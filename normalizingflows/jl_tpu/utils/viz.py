@@ -1,6 +1,6 @@
 """Visualization utilities for flows and 2-D synthetic targets.
 
-TPU-native counterpart of the reference's example plotting helpers
+JAX counterpart of the reference's example plotting helpers
 (`example/utils.jl:5-58`: `compare_trained_and_untrained_flow` scatter
 overlay; `example/SyntheticTargets.jl:12-19`: `visualize` pdf contour +
 samples). Matplotlib (Agg, headless) instead of Plots.jl; figures are

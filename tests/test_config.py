@@ -1,7 +1,7 @@
 """Config subsystem: JSON round-trip, build, and end-to-end run.
 
 SURVEY §5 ("Config / flag system"): the reference exposes every knob as a
-keyword argument with defaults; the TPU build packages them as dataclass
+keyword argument with defaults; this build packages them as dataclass
 configs. These tests pin (a) serialization round-trip exactness, (b) that
 `FlowConfig.build` hits every family with reference defaults, (c) that a
 tiny `TrainConfig.run` improves the objective.

@@ -35,9 +35,9 @@ def test_detect_slurm_plain_and_ranged_nodelist():
     addr, n, i = dist.detect_cluster_env(env)
     assert addr.startswith("hosta:") and (n, i) == (8, 3)
 
-    env["SLURM_STEP_NODELIST"] = "tpu-node[017-020],tpu-node025"
+    env["SLURM_STEP_NODELIST"] = "gpu-node[017-020],gpu-node025"
     addr, n, i = dist.detect_cluster_env(env)
-    assert addr.startswith("tpu-node017:")
+    assert addr.startswith("gpu-node017:")
 
 
 def test_slurm_first_host_shapes():
@@ -47,7 +47,7 @@ def test_slurm_first_host_shapes():
     assert f("host[005,009-012]") == "host005"
     assert f("hosta,hostb") == "hosta"
     assert f("host[001,003]") == "host001"
-    assert f("tpu-[3-4]srv,other[1-2]") == "tpu-3srv"
+    assert f("gpu-[3-4]srv,other[1-2]") == "gpu-3srv"
     assert f("single") == "single"
     assert f("n[10]") == "n10"
     # multiple bracket groups in ONE hostname (valid scontrol shape;

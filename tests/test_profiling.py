@@ -40,5 +40,24 @@ def test_trace_writes_artifacts(tmp_path):
     assert any(f.is_file() for f in files), "no trace artifacts written"
 
 
-def test_sync_fetch_scalar():
-    assert profiling.sync_fetch(jnp.full((3, 3), 7.0)) == 7.0
+def test_time_call_times_each_rep_after_warmup():
+    calls = []
+
+    def fn(x):
+        calls.append(x)
+        return jnp.sum(x)
+
+    times = profiling.time_call(fn, jnp.ones(4), reps=3)
+    assert len(times) == 3 and all(t >= 0 for t in times)
+    assert len(calls) == 4  # one untimed warm-up call, then the reps
+
+
+def test_time_call_without_warmup_times_every_call():
+    calls = []
+
+    def fn(x):
+        calls.append(x)
+        return jnp.sum(x)
+
+    times = profiling.time_call(fn, jnp.ones(4), reps=2, warmup=False)
+    assert len(times) == 2 and len(calls) == 2
